@@ -1,10 +1,10 @@
-"""burn_ppo_tpu — a TPU-native PPO self-play framework.
+"""burn_ppo_tpu — a PPO self-play framework on JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of the `burn-ppo`
 reference (single-process Rust/Burn PPO with self-play, opponent pools,
 Plackett-Luce ratings, tournaments and evaluation tooling).
 
-Design pillars (TPU-first, not a port):
+Design pillars (accelerator-first, not a port):
   * Environments are pure functions stepped under `vmap` *inside* `jit`
     on-device — there is no CPU env worker pool and no host<->device
     obs/action round trip per step (the reference crosses twice per step,
@@ -15,7 +15,7 @@ Design pillars (TPU-first, not a port):
     update iteration.
   * Multi-chip scale-out (absent in the reference) uses a
     `jax.sharding.Mesh` with a `data` axis: env states and rollouts are
-    sharded, parameters replicated, gradients reduced with `pmean`.
+    sharded, parameters replicated, gradients reduced by GSPMD all-reduces.
 """
 
 __version__ = "0.1.0"

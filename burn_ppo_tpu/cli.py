@@ -12,7 +12,7 @@ the Fresh / Resume / Fork mode triangle (main.rs:151-161):
              overrides, lineage recorded in forked_from
 
 The reference's ``--backend`` flag picks a Burn backend
-(src/backend.rs:84-125); here the analog is ``--platform`` (tpu/cpu) and
+(src/backend.rs:84-125); here the analog is ``--platform`` (gpu/cpu) and
 ``--mesh-data`` (data-parallel axis size) since the compute stack is
 always XLA.
 """
@@ -40,16 +40,18 @@ def _add_train_parser(sub):
     p.add_argument("--run-dir", help="Explicit run directory")
     p.add_argument("--runs-base", default="runs", help="Base directory for runs")
     p.add_argument("--quiet", action="store_true", help="Suppress progress output")
-    p.add_argument("--platform", choices=["tpu", "cpu"], default=None,
-                   help="Force a JAX platform (default: ambient)")
+    p.add_argument("--platform", choices=["gpu", "cpu"], default=None,
+                   help="Force a JAX platform; 'gpu' fails when no GPU is "
+                        "present (default: JAX's own choice)")
     p.add_argument("--reload-every-n-checkpoints", type=int, default=0,
                    help="Supervisor mode: respawn training as a subprocess "
                         "every N checkpoints (0 = off; reference default 10)")
     p.add_argument("--max-checkpoints-this-run", type=int, default=0,
                    help=argparse.SUPPRESS)  # internal (supervisor child)
     p.add_argument("--multihost", action="store_true",
-                   help="Initialize jax.distributed (TPU pod auto-detect, or "
-                        "BURN_PPO_COORDINATOR/NUM_PROCESSES/PROCESS_ID env vars)")
+                   help="Initialize jax.distributed from the "
+                        "BURN_PPO_COORDINATOR/NUM_PROCESSES/PROCESS_ID env "
+                        "vars, else JAX's SLURM / Open MPI auto-detection")
     p.add_argument("--profile-dir", default=None,
                    help="Capture a jax.profiler trace into this directory")
     p.add_argument("--profile-start", type=int, default=1,
@@ -65,10 +67,11 @@ def _add_train_parser(sub):
                         "separately (logs perf/rollout_time etc.)")
     p.add_argument("--compilation-cache", default="auto", metavar="DIR|auto|off",
                    help="Persistent XLA compilation cache directory "
-                        "('auto' = ~/.cache/burn_ppo_tpu/xla_cache or "
-                        "$BURN_PPO_COMPILE_CACHE; 'off' disables). "
-                        "Supervisor children and resumed runs hit the "
-                        "cache instead of recompiling")
+                        "('auto' = <checkout>/.cache/xla on GPU, off on "
+                        "CPU; 'off' disables). $JAX_COMPILATION_CACHE_DIR, "
+                        "when set, takes precedence. Supervisor children "
+                        "and resumed runs hit the cache instead of "
+                        "recompiling")
     p.add_argument("--elapsed-time-offset-ms", type=int, default=0,
                    help=argparse.SUPPRESS)  # internal (supervisor child)
 
@@ -119,7 +122,8 @@ def _add_train_parser(sub):
     p.add_argument("--compute-dtype", choices=["bfloat16"])
     p.add_argument("--mesh-data", type=int, help="Data-parallel mesh size (0 = all devices)")
     p.add_argument("--shuffle-block-rows", type=int,
-                   help="Epoch-shuffle tile size (0 = auto, 1 = exact)")
+                   help="Epoch-shuffle tile size (0 or 1 = exact "
+                        "per-sample shuffle, >1 = tiles of that many rows)")
     # --x / --no-x tri-state booleans (config.rs:142-257)
     for flag in ("normalize-obs", "normalize-returns", "normalize-values",
                  "clip-value", "split-networks", "debug-opponents"):
@@ -191,7 +195,7 @@ def _add_interactive_parser(sub):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="burn-ppo-tpu",
-        description="TPU-native PPO self-play framework",
+        description="PPO self-play framework on JAX",
     )
     parser.add_argument("--version", action="version", version="burn-ppo-tpu 0.1.0")
     sub = parser.add_subparsers(dest="command")
@@ -281,7 +285,7 @@ def run_train(args, argv=None) -> int:
         import jax
 
         jax.config.update(
-            "jax_platforms", "cpu" if args.platform == "cpu" else None
+            "jax_platforms", "cuda" if args.platform == "gpu" else "cpu"
         )
     if args.multihost:
         # Must precede anything that initializes the XLA backend —
@@ -289,6 +293,16 @@ def run_train(args, argv=None) -> int:
         from burn_ppo_tpu.parallel.distributed import maybe_initialize
 
         maybe_initialize(force=True)
+    if args.platform == "gpu":
+        try:
+            jax.devices()
+        # RuntimeError: the CUDA plugin found no usable card; an
+        # AssertionError comes from jax_platforms naming a platform that
+        # has no plugin installed at all.
+        except (RuntimeError, AssertionError) as e:
+            print(f"error: --platform gpu, but JAX found no GPU ({e!r})",
+                  file=sys.stderr)
+            return 2
     from burn_ppo_tpu.utils import enable_compilation_cache
 
     enable_compilation_cache(args.compilation_cache)

@@ -14,8 +14,9 @@ Feature parity with the reference's config layer (src/config.rs):
     ``{parent}_child_{n:03}`` (config.rs:1668-1676);
   * duration strings "30s" / "5m" / "2h" (config.rs:11-40).
 
-TPU-specific additions (absent in the single-device reference):
-``compute_dtype`` and ``mesh`` (data-parallel axis size).
+Additions absent in the single-device reference: ``compute_dtype`` and
+``mesh_data`` (data-parallel axis size), stacked pool opponents and
+fused pool windows.
 """
 
 from __future__ import annotations
@@ -244,16 +245,16 @@ class Config:
     opponent_select_alpha: float = 0.1
     opponent_select_exponent: float = 2.0
     debug_opponents: bool = False
-    # TPU addition: opponents kept device-resident per rotation (stacked
+    # Addition: opponents kept device-resident per rotation (stacked
     # params); the reference lazily loads/unloads models per rotation.
     max_active_opponents: int = 8
-    # TPU addition: PPO updates per opponent rotation. 1 = the
+    # Addition: PPO updates per opponent rotation. 1 = the
     # reference's exact per-update cadence (opponent_pool.rs:233-246);
     # W > 1 fuses W vs-pool updates into one device window — the
     # rotation and the win-rate EMA / rating folds then run once per
     # window instead of once per update (a documented cadence deviation;
-    # the EMA sees the same games, batched coarser). Essential on
-    # tunneled/multi-host setups where per-update dispatch dominates.
+    # the EMA sees the same games, batched coarser). Essential where
+    # per-update dispatch dominates (small batches, multi-host).
     # Must be a power of two: windows are sized in the power-of-2 family
     # the background precompile warms, so any other value would silently
     # run at the next power of two below it.
@@ -264,11 +265,11 @@ class Config:
     run_name: Optional[str] = None
     forked_from: Optional[str] = None
 
-    # --- TPU-native additions (no reference equivalent) ---------------
+    # --- additions with no reference equivalent -----------------------
     compute_dtype: Optional[str] = None  # None (f32) or "bfloat16"
     mesh_data: int = 0  # data-parallel axis size; 0 = all local devices
-    # Epoch-shuffle tile size: 0 = auto (exact per-sample shuffle at
-    # reference batch sizes, tiled at TPU scale), 1 = always exact.
+    # Epoch-shuffle tile size: 0 or 1 = exact per-sample shuffle (the
+    # reference's semantics), > 1 = tiles of that many rows.
     shuffle_block_rows: int = 0
     # Runtime-guard policy for empty action masks / non-finite outputs:
     # "raise" (reference panics, utils.rs:115-135 + ppo.rs:363-366),

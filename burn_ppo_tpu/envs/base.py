@@ -30,7 +30,7 @@ from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 State = Any
 
@@ -39,11 +39,10 @@ State = Any
 # One-hot read/write primitives for env code.
 #
 # Under vmap, `arr[i]` / `arr.at[i].set(v)` with a traced index lowers to
-# a per-env gather/scatter, and TPU gathers pay ~12.5ns PER INDEX
-# (docs/DESIGN.md perf table). Game steps perform dozens of seat-indexed
-# accesses, so at 2-4k envs the env — not the network — becomes the
-# training bottleneck. These helpers keep every such access a small
-# elementwise op (the arrays are 4-24 wide).
+# a per-env gather/scatter. Game steps perform dozens of seat-indexed
+# accesses, and these helpers keep every such access a small elementwise
+# op that fuses with its neighbours (the arrays are 4-24 wide). Whether
+# plain indexing ties on the GPU is not measured yet.
 # --------------------------------------------------------------------------
 def onehot_eq(i: jax.Array, size: int) -> jax.Array:
     """Boolean one-hot row: arange(size) == i (all-False when i is out

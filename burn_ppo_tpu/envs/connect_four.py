@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.envs import register
 from burn_ppo_tpu.envs.base import Environment, EnvSpec

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.envs import register
 from burn_ppo_tpu.envs.base import (
@@ -67,20 +67,16 @@ ROSE_C, SKULL_C = 1, 2
 
 # One-hot read/write primitives (_oh/_read/_write, imported above):
 # every seat-indexed access is an elementwise op, never a per-env
-# gather/scatter — see the note at envs/base.py:onehot_eq for why this
-# matters on TPU.
+# gather/scatter — see the note at envs/base.py:onehot_eq.
 
 
 class SkullState(struct.PyTreeNode):
     has_trap: jax.Array  # bool[6]
     rose_count: jax.Array  # i32[6]
     wins: jax.Array  # i32[6]
-    # Stack contents are FLAT [MAXP*CARDS] (player*CARDS + pos): a
-    # (6, 4)-shaped int array occupies one (8, 128) TPU tile with 24 of
-    # 1024 lanes live, and a hardware trace showed every op touching it
-    # (count reduces, the reveal read, auto-reset selects) running at
-    # ~2-3 GB/s — together ~20% of flagship device time. The per-player
-    # skull/rose counts that mask/obs need every step are maintained
+    # Stack contents are FLAT [MAXP*CARDS] (player*CARDS + pos), and the
+    # per-player skull/rose counts that mask/obs need every step are
+    # maintained
     # INCREMENTALLY (place adds, round reset zeros; reveals don't change
     # contents), so nothing reduces over the contents array anymore.
     stack: jax.Array  # i32[24] flat

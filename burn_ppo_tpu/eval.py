@@ -10,7 +10,7 @@ Parity with the reference `eval` subcommand (src/eval.rs):
   * watch mode: ASCII render / step / fps animation (eval.rs:1068-1279);
   * interactive human play in the terminal (eval.rs:947, human.rs).
 
-TPU design: the stats engine is a jitted `lax.scan` over fixed-size step
+Design: the stats engine is a jitted `lax.scan` over fixed-size step
 chunks; envs never partition dynamically (the reference groups envs per
 model on CPU instead, eval.rs:1685-1717). Duplicate sources collapse to
 unique models, and same-architecture models stack so each env contracts
@@ -30,7 +30,7 @@ from typing import ClassVar, Any, Dict, List, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.checkpoint import CheckpointManager
 from burn_ppo_tpu.envs import make_env
@@ -367,7 +367,7 @@ def make_acting_logits_fn(env, sources: List[PlayerSource], num_envs: int):
     """Build ``logits_fn(obs_raw [E,D], acting_source [E]) -> [E,A]``.
 
     The reference partitions envs by acting model on CPU and forwards
-    each model only on its envs (eval.rs:1685-1717). The TPU equivalent
+    each model only on its envs (eval.rs:1685-1717). The device version
     keeps static shapes and instead removes the waste in two layers:
 
       1. **Dedup**: sources referencing the same loaded model (self-play

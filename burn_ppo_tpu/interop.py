@@ -5,7 +5,7 @@ The reference serializes models with Burn's ``NamedMpkFileRecorder``
 holding the module record, ``metadata.json`` holding the architecture,
 ``normalizer.json`` holding the obs normalizer) — a format this repo
 cannot otherwise consume, which blocked cross-framework head-to-heads
-(VERDICT r3 missing #1 / task #10). This module maps those artifacts
+. This module maps those artifacts
 onto repo pytrees so a reference-trained model can enter eval and
 tournaments.
 

@@ -11,7 +11,7 @@ systems make awkward:
     `vmap`-ing one forward over all of them during vs-pool rollouts.
 
 All matmuls go through `dense`, which optionally casts to a compute dtype
-(bf16 on TPU) while keeping parameters and outputs in f32.
+(bf16) while keeping parameters and outputs in f32.
 """
 
 from __future__ import annotations
@@ -52,10 +52,11 @@ def conv_init(key, kh: int, kw: int, in_ch: int, out_ch: int, gain: float = 1.0)
 
 
 def conv2d_same(params, x: jax.Array, compute_dtype=None) -> jax.Array:
-    """Stride-1, SAME-padded 2D convolution in NHWC (TPU-native layout).
+    """Stride-1, SAME-padded 2D convolution in NHWC.
 
     The reference permutes to NCHW for Burn (src/network/cnn.rs:234-262);
-    on TPU NHWC feeds the MXU directly, so we stay channels-last.
+    the obs already arrive channels-last, so we stay NHWC and let XLA
+    pick the convolution layout.
     """
     kernel, bias = params["kernel"], params["bias"]
     if compute_dtype is not None and x.dtype != compute_dtype:

@@ -12,7 +12,7 @@ Architectures (behavioral parity, file:line cites to the reference):
     (src/network/mlp.rs:46-206).
   * CNN  — stride-1 SAME conv stack over the spatial slice of the obs,
     flatten, concat extra features, FC stack, heads
-    (src/network/cnn.rs:23-300). NHWC on TPU (no NCHW permute).
+    (src/network/cnn.rs:23-300). NHWC (no NCHW permute).
   * CTDE — MAPPO-style: actor(obs) -> logits; critic(concat(priv, obs))
     -> value, with independent critic width/depth
     (src/network/ctde.rs:26-183).
@@ -69,7 +69,7 @@ class ActorCriticNetwork:
     cnn_fc_hidden_size: int = 32
     cnn_num_fc_layers: int = 1
     # numeric
-    compute_dtype: Optional[str] = None  # None => f32; "bfloat16" for MXU
+    compute_dtype: Optional[str] = None  # None => f32; "bfloat16" matmuls
 
     # ------------------------------------------------------------------
     @property

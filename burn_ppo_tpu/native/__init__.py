@@ -2,7 +2,7 @@
 toolchain and bound through ctypes.
 
 The reference's native layer is Burn's backend kernels plus rayon
-threading (SURVEY.md §2 native-component note); here the TPU compute
+threading (SURVEY.md §2 native-component note); here the device compute
 path is XLA, and the host-side runtime keeps its hot scalar loops in
 C++: currently the Plackett-Luce MM rating engine
 (native/plackett_luce.cpp), recomputed at every training checkpoint and

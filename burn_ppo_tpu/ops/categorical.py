@@ -1,6 +1,6 @@
 """Masked-categorical primitives: sampling, log-prob, entropy.
 
-TPU notes: all ops are pure elementwise/reduction kernels that XLA fuses
+Device notes: all ops are pure elementwise/reduction kernels that XLA fuses
 into the surrounding network forward pass; masking is additive with a
 large-but-finite negative constant (the reference uses the same trick in
 its loss path, src/ppo.rs:1437-1441) so every intermediate stays finite
@@ -48,10 +48,9 @@ def sample_categorical(key: jax.Array, logits: jax.Array) -> jax.Array:
 def log_prob_from_logp(logp: jax.Array, actions: jax.Array) -> jax.Array:
     """Select log pi(a|s) from a precomputed log-softmax.
 
-    The selection is a one-hot contraction, not take_along_axis: TPU
-    gathers cost ~12.5ns per index, so a per-row gather over millions of
-    update samples costs tens of ms, while the A-wide multiply-sum fuses
-    into the surrounding elementwise pass for free.
+    The selection is a one-hot contraction, not take_along_axis: the
+    A-wide multiply-sum fuses into the surrounding elementwise pass
+    instead of a separate per-row gather over every update sample.
     ``where()`` keeps -inf-masked rows finite: (-inf * 0.0) would be NaN.
     """
     onehot = jax.nn.one_hot(actions, logp.shape[-1], dtype=logp.dtype)

@@ -1,13 +1,15 @@
 """Multi-host (multi-process) support.
 
 The reference is single-process (SURVEY.md §2 note: no collectives, no
-process groups anywhere); this module supplies the scale-out layer the
-TPU build adds on top of its feature set (SURVEY.md §5 "distributed
-communication backend" TPU-native equivalent):
+process groups anywhere); this module supplies the scale-out layer this
+build adds on top of its feature set (SURVEY.md §5 "distributed
+communication backend"):
 
   * ``maybe_initialize()`` — ``jax.distributed.initialize`` from explicit
-    args or the standard env vars; a no-op in single-process runs and on
-    TPU pods where JAX auto-detects the topology.
+    args or the standard env vars; a no-op in single-process runs.
+    ``jax.distributed.initialize()`` without arguments auto-detects only
+    cluster managers it knows (SLURM, Open MPI); elsewhere, e.g. several
+    processes on one GPU host, pass the coordinator explicitly.
   * ``is_primary()`` — process 0 owns logging, checkpoints, graphs and
     stdout; other hosts compute silently (host-0 logging discipline).
   * ``global_put(tree, sharding_fn)`` — build globally-sharded arrays
@@ -15,11 +17,11 @@ communication backend" TPU-native equivalent):
     ``device_put`` onto a global sharding only works single-process).
   * ``host_local_slice(x)`` — the addressable shard block of a globally
     sharded array, for per-host episode bookkeeping without pulling the
-    full global array across DCN.
+    full global array across hosts.
 
 Gradient/normalizer reductions need no code here: the train step is a
-global-view jit program, so GSPMD inserts the cross-host psums (over ICI
-within a slice, DCN across slices) from the sharding annotations alone.
+global-view jit program, so GSPMD inserts the cross-device psums (NCCL
+on GPUs, Gloo on CPU processes) from the sharding annotations alone.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def maybe_initialize(
     Configuration sources, in priority order: explicit args, the
     ``BURN_PPO_COORDINATOR`` / ``BURN_PPO_NUM_PROCESSES`` /
     ``BURN_PPO_PROCESS_ID`` env vars, then JAX's own auto-detection
-    (TPU pod metadata) when ``BURN_PPO_MULTIHOST=1``.
+    (SLURM / Open MPI) when ``BURN_PPO_MULTIHOST=1`` or ``force``.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "BURN_PPO_COORDINATOR"
@@ -51,6 +53,10 @@ def maybe_initialize(
         num_processes = int(os.environ["BURN_PPO_NUM_PROCESSES"])
     if process_id is None and "BURN_PPO_PROCESS_ID" in os.environ:
         process_id = int(os.environ["BURN_PPO_PROCESS_ID"])
+    if coordinator_address is not None or force or (
+        os.environ.get("BURN_PPO_MULTIHOST") == "1"
+    ):
+        _autotune_per_process()
 
     if coordinator_address is not None:
         jax.distributed.initialize(
@@ -60,9 +66,22 @@ def maybe_initialize(
         )
         return True
     if force or os.environ.get("BURN_PPO_MULTIHOST") == "1":
-        jax.distributed.initialize()  # TPU pod auto-detection
+        jax.distributed.initialize()  # cluster-manager auto-detection
         return True
     return False
+
+
+def _autotune_per_process() -> None:
+    """Each process autotunes its own GPU programs. XLA's sharded
+    autotuning (processes split the GEMM autotuning and swap results
+    through the coordinator) crashed in the post-layout HLO passes when
+    four one-card H100 processes compiled the trainer's window. Must run
+    before the first backend use, which reads ``XLA_FLAGS``."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_gpu_shard_autotuning" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_gpu_shard_autotuning=false"
+        ).strip()
 
 
 def process_count() -> int:
@@ -101,7 +120,7 @@ def host_local_slice(x: jax.Array, axis: int = 0) -> np.ndarray:
 
     For a ``P("data")``-sharded array this is the host's env block
     (episode logs [T, E, ...] shard on axis 1); replicated arrays come
-    back whole. Utility for host-local views without DCN pulls; the
+    back whole. Utility for host-local views without cross-host pulls; the
     production logging path instead reduces on device and fetches one
     packed buffer (checkpoint.fetch_tree), so this currently has only
     test callers.
@@ -186,7 +205,7 @@ def broadcast_from_primary(values: np.ndarray) -> np.ndarray:
     Used for loop-control decisions that must not diverge across hosts
     (time-budget stop, fused-window size): host-local wall clocks differ,
     so each host deciding independently would enqueue different jitted
-    collective programs and hang the pod."""
+    collective programs and hang the job."""
     if jax.process_count() == 1:
         return np.asarray(values)
     from jax.experimental import multihost_utils
@@ -195,7 +214,7 @@ def broadcast_from_primary(values: np.ndarray) -> np.ndarray:
     if arr.dtype == np.int64 and not jax.config.jax_enable_x64:
         # broadcast_one_to_all round-trips through jax arrays, which
         # silently canonicalize int64 -> int32 with x64 off — a seed
-        # >= 2**31 would wrap on a pod but not single-process. Fail
+        # >= 2**31 would wrap multi-process but not single-process. Fail
         # loudly instead of diverging between the two modes.
         if np.any(arr > np.iinfo(np.int32).max) or np.any(
             arr < np.iinfo(np.int32).min

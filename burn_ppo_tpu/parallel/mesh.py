@@ -2,14 +2,14 @@
 
 The reference is strictly single-process / single-device (SURVEY.md §2
 note; no collectives anywhere). This module supplies the scale-out axis
-the TPU build adds: a 1-D ``data`` mesh over which environments and
+this build adds: a 1-D ``data`` mesh over which environments and
 rollout data are sharded while parameters stay replicated.
 
 Design: the train step is written as a *global-view* program; we place
 env-state pytrees with a `NamedSharding(P("data"))` on their leading
 (env) dimension and let GSPMD insert the collectives — the Welford
-normalizer merges and gradient reductions become `psum`s over ICI
-automatically. No hand-written collective calls are needed in the hot
+normalizer merges and gradient reductions become `psum`s (all-reduces
+over NVLink on a GPU host) automatically. No hand-written collective calls are needed in the hot
 path (the "pick a mesh, annotate shardings, let XLA do the rest" recipe).
 """
 
@@ -28,8 +28,8 @@ def make_mesh(num_devices: int = 0, devices=None) -> Mesh:
     """1-D data-parallel mesh. ``num_devices`` 0 => all local devices.
 
     Requesting more devices than exist is an ERROR, not a silent clamp:
-    a run sized for an 8-wide mesh landing on 1 device (e.g. the TPU
-    plugin failed to register) should fail loudly, not train at 1/8
+    a run sized for an 8-wide mesh landing on 1 device (e.g. the GPU
+    runtime failed to load) should fail loudly, not train at 1/8
     throughput with mis-sized shards."""
     if devices is None:
         devices = jax.devices()

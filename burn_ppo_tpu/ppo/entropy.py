@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.schedule import Schedule
 

@@ -1,7 +1,7 @@
 """On-device episode statistics.
 
 The reference ingests every completed episode on the host (last-100
-deques, main.rs:840-875). On TPU at 64k+ envs the per-update episode
+deques, main.rs:840-875). At 64k+ envs the per-update episode
 logs are ~100MB; fetching them to feed host deques dominates real
 training time. Instead the train step reduces the [T, E] logs to a
 handful of scalars on device (masked sums over completed rows) and the

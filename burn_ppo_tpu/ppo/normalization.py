@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 
 def _welford_merge(mean_a, m2_a, count_a, mean_b, m2_b, count_b):

@@ -5,7 +5,7 @@ a fraction of envs plays against sampled past checkpoints; the learner
 occupies one (shuffled) seat; only learner turns are valid training
 samples; placements and seating are captured before reseating.
 
-TPU-native formulation: the K active opponents' parameter pytrees are
+Device formulation: the K active opponents' parameter pytrees are
 stacked along a leading axis and applied with ONE `vmap`-ed forward over
 the pool-env block — no per-opponent batching or lazy model loads inside
 the step (the reference partitions envs per opponent on CPU,
@@ -29,7 +29,7 @@ from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.envs.base import Environment, EpisodeLog, autoreset_step
 from burn_ppo_tpu.models.network import ActorCriticNetwork
@@ -46,13 +46,7 @@ from burn_ppo_tpu.ppo.normalization import (
     return_norm_finalize,
     return_norm_roll,
 )
-import burn_ppo_tpu.ppo.rollout as _rollout
-from burn_ppo_tpu.ppo.rollout import (
-    RolloutBatch,
-    RolloutCarry,
-    blocked_scan,
-    rollout_row_width,
-)
+from burn_ppo_tpu.ppo.rollout import RolloutBatch, RolloutCarry
 
 
 class PoolSeating(struct.PyTreeNode):
@@ -166,7 +160,7 @@ def collect_rollouts_with_opponents(
         onehot = jax.nn.one_hot(players, P, dtype=values.dtype)  # [E, P]
 
         # Opponent forward on the pool block only. Selections are one-hot
-        # contractions (TPU gathers pay ~12.5ns per index).
+        # contractions (see ops/categorical.log_prob_from_logp).
         if Ep > 0:
             logits_k = opponent_logits(obs_raw[L:])  # [K, Ep, A]
             acting_slot = jnp.sum(
@@ -272,11 +266,8 @@ def collect_rollouts_with_opponents(
         )
         return (new_carry, new_seat_state), (out, step_log, samples)
 
-    (carry_out, seat_out), (batch, logs, samples) = blocked_scan(
-        step_fn, (carry, seating), num_steps,
-        block=_rollout.default_scan_block(
-            rollout_row_width(env, True, collect_priv)
-        ),
+    (carry_out, seat_out), (batch, logs, samples) = jax.lax.scan(
+        step_fn, (carry, seating), None, length=num_steps
     )
     if normalize_returns:
         # Reference pool semantics (ppo.rs:952-996): variance stats fold

@@ -23,7 +23,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.envs.base import (
     Environment,
@@ -46,105 +46,6 @@ from burn_ppo_tpu.ppo.normalization import (
     return_norm_finalize,
     return_norm_roll,
 )
-
-
-def default_scan_block(row_width: Optional[int] = None) -> int:
-    """Platform- and shape-aware default for `blocked_scan`'s block size.
-
-    The 8x unroll is a pure TPU-tiling optimization (full-sublane ys
-    writes); XLA:CPU gains nothing from it and pays a ~20x compile-time
-    blowup on the unrolled scan body (2+ minutes per jit_window, enough
-    to time out the 8-device dryrun and inflate single test files from
-    seconds to minutes). Block only on real TPU backends.
-
-    ``row_width`` is the per-step ys feature width (floats per env per
-    step). The blocked write wins on WIDE rows — measured on v5e:
-    skull-CTDE (~375 floats) +15%, connect-four pool (~100) +8-9% —
-    but LOSES ~2.3% on narrow rows (cartpole, ~15 floats), where each
-    [1, E, C] write already covers whole tiles and the unroll only adds
-    scheduling overhead (scripts/ab_scan_block.py, r5). Width unknown ->
-    assume wide.
-
-    ``BURN_PPO_SCAN_BLOCK`` overrides everything (A/B and escape hatch;
-    resolved at trace time).
-    """
-    import os
-
-    override = os.environ.get("BURN_PPO_SCAN_BLOCK")
-    if override:
-        return max(1, int(override))
-    try:
-        if jax.default_backend() != "tpu":
-            return 1
-    except RuntimeError:
-        return 1
-    if row_width is not None and row_width < 32:
-        return 1
-    return 8
-
-
-def rollout_row_width(env: Environment, collect_masks: bool,
-                      collect_priv: bool) -> int:
-    """Per-step RolloutBatch feature width (floats per env) — the shape
-    input to `default_scan_block`."""
-    spec = env.spec
-    width = spec.obs_dim + spec.num_players + 6  # scalars + all_rewards
-    if collect_masks:
-        width += spec.num_actions
-    if collect_priv and spec.privileged_obs_dim:
-        width += spec.privileged_obs_dim
-    return width
-
-
-def blocked_scan(step_fn, carry, num_steps: int, block: Optional[int] = None):
-    """`lax.scan(step_fn, carry, None, length=num_steps)`, executed in
-    unrolled blocks of up to 8 steps whose outputs stack to [B, ...]
-    before the scan's ys write.  ``block=None`` resolves via
-    `default_scan_block()` — 8 on TPU, 1 (plain `lax.scan`) elsewhere.
-
-    Why: a per-step ys write of [1, E, C] into the stacked [T, E, C]
-    buffer lands on one of 8 sublanes of the buffer's (8, 128) TPU tile
-    (XLA lays these buffers out with T in the sublane dim to make the
-    downstream [T*E, C] flatten free), so every step pays an 8x
-    read-modify-write against HBM — a hardware trace showed the rollout
-    log writes running at ~56 GiB/s, 12% of flagship device time. A
-    [1, B, E, C] block write with B = 8 covers the full sublane extent,
-    so tiles are overwritten, not read-modified. (Threading flat [T*E, C]
-    buffers through the scan carry instead is WORSE: XLA's memory-space
-    assignment pins sub-VMEM-sized carries into VMEM and the program
-    collapses — measured 15x slower on the connect-four path.)
-
-    Output leaves merge back to [T, ...], so callers see the exact
-    stacked-ys structure `lax.scan` would have produced; the step order
-    and RNG consumption are bit-identical.  Values are semantically
-    identical but may differ at the ~1-ulp level from the block=1 form:
-    XLA is free to contract mul+add chains that span the unrolled steps
-    into FMAs with different rounding (observed ~2e-5 relative on the
-    CPU return-normalizer chain; tests/test_blocked_scan.py).
-    """
-    if block is None:
-        block = default_scan_block()
-    while block > 1 and num_steps % block:
-        block //= 2
-
-    if block == 1:
-        return jax.lax.scan(step_fn, carry, None, length=num_steps)
-
-    def block_fn(c, _):
-        outs = []
-        for _ in range(block):
-            c, o = step_fn(c, None)
-            outs.append(o)
-        stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *outs)
-        return c, stacked
-
-    carry, ys = jax.lax.scan(
-        block_fn, carry, None, length=num_steps // block
-    )
-    ys = jax.tree_util.tree_map(
-        lambda a: a.reshape((num_steps,) + a.shape[2:]), ys
-    )
-    return carry, ys
 
 
 class RolloutBatch(struct.PyTreeNode):
@@ -260,8 +161,8 @@ def collect_rollouts(
 
         all_rewards = terminal.rewards  # [E, P]
         dones = terminal.done  # [E] bool
-        # One-hot contraction, not take_along_axis: per-row TPU gathers
-        # cost ~12.5ns/index, a real cost at T*E index ops per rollout.
+        # One-hot contraction, not take_along_axis: it fuses into the
+        # surrounding elementwise pass instead of a per-row gather.
         onehot = jax.nn.one_hot(players, P, dtype=all_rewards.dtype)
         acting_reward = jnp.sum(all_rewards * onehot, axis=1)
 
@@ -306,11 +207,8 @@ def collect_rollouts(
         )
         return new_carry, (out, log, samples)
 
-    carry_out, (batch, logs, samples) = blocked_scan(
-        step_fn, carry, num_steps,
-        block=default_scan_block(
-            rollout_row_width(env, collect_masks, collect_priv)
-        ),
+    carry_out, (batch, logs, samples) = jax.lax.scan(
+        step_fn, carry, None, length=num_steps
     )
     if normalize_returns:
         new_norm, normalized = return_norm_finalize(

@@ -57,24 +57,20 @@ class PPOUpdateConfig:
     adam_epsilon: float = 1e-5
     normalize_values: bool = False  # PopArt
     # Epoch-shuffle granularity: rows are shuffled in tiles of this many
-    # consecutive samples. 0 = auto (1 at reference batch sizes — exact
-    # per-sample shuffle — growing to 128 at TPU scale), 1 = always exact.
-    # TPU random gathers pay ~12.5ns per index regardless of row width,
-    # so tiling cuts the epoch-shuffle cost by the tile factor. Since
-    # every minibatch reduction is order-invariant, tiling only affects
-    # which samples co-occur in a minibatch; a tile spans adjacent envs
-    # at one timestep — negligible correlation at >=16k-sample tiles-per-
-    # minibatch ratios, and reference-scale runs always use tile 1.
+    # consecutive samples. 0 or 1 = exact per-sample shuffle (the
+    # reference's semantics); > 1 = tiles (a tile spans adjacent envs at
+    # one timestep, so only minibatch co-occurrence changes). On an H100
+    # the exact row gather costs 0.27% of the skull-CTDE 4096x64 step
+    # against 16-row tiles and is within the run-to-run spread at
+    # cartpole 4096x128 (PERF.md), so nothing tiles by default.
     shuffle_block_rows: int = 0
 
 
-def resolve_shuffle_block(n: int, mb_size: int, requested: int) -> int:
-    """Largest power-of-2 tile size <= target that divides mb_size."""
-    if requested == 1:
-        return 1
-    target = requested if requested > 1 else max(1, min(128, n // 16384))
+def resolve_shuffle_block(mb_size: int, requested: int) -> int:
+    """Largest power-of-2 tile size <= ``requested`` that divides
+    mb_size; 1 (exact per-sample shuffle) for ``requested`` <= 1."""
     r = 1
-    while r * 2 <= target and mb_size % (r * 2) == 0:
+    while r * 2 <= requested and mb_size % (r * 2) == 0:
         r *= 2
     return r
 
@@ -257,10 +253,9 @@ def ppo_update(
         params = network.with_value_head(params, kernel, bias)
 
     # ---- pack all per-sample fields into ONE [N, C] buffer -------------
-    # TPU random-row gathers pay a fixed per-index cost, so seven separate
-    # column gathers per epoch shuffle (~870ms at 8M samples) collapse
-    # into one wide row gather (~220ms).  Semantics are identical to the
-    # reference's per-epoch index shuffle (ppo.rs:1815-1816).
+    # Seven separate column gathers per epoch shuffle collapse into one
+    # wide row gather.  Semantics are identical to the reference's
+    # per-epoch index shuffle (ppo.rs:1815-1816).
     has_priv = "privileged_obs" in data and data["privileged_obs"] is not None
     has_masks = "action_masks" in data and data["action_masks"] is not None
 
@@ -283,27 +278,7 @@ def ppo_update(
         )[:, None]
     )
     parts.extend(data[f].astype(jnp.float32)[:, None] for f in scalar_fields)
-    packed = jnp.concatenate(parts, axis=1)  # [N, C_real]
-    C_real = packed.shape[1]
-    # Lane-align the packed rows to the TPU's (8, 128) tile: with an
-    # unaligned C (skull-CTDE: 374) the [N, C] <-> [blocks, R*C] <->
-    # [nmb, mb, C] reshapes around each epoch's shuffle gather all have
-    # different minor-dim tile padding, so XLA materializes every one as
-    # a real copy — measured 265ms/trace of 'data formatting' at 600
-    # GiB/s, ~13% of flagship device time (r5 hlo_stats). Zero columns
-    # after the valid flag change no semantics (unpack reads by offset,
-    # reductions are valid-weighted).
-    # Only when the padding itself is cheap (<= 12.5% extra bytes):
-    # every padded byte rides the shuffle gather too, and that costs
-    # more than the reshape saving below ~90% occupancy — measured on
-    # v5e: skull C=374->384 (+2.7%) gains 1.9% sps, connect-four
-    # C=100->128 (+28%) LOSES 3.5%, cartpole C=13->128 would be 10x.
-    pad_c = (-C_real) % 128
-    if pad_c and pad_c * 8 <= C_real:
-        packed = jnp.concatenate(
-            [packed, jnp.zeros((packed.shape[0], pad_c), packed.dtype)],
-            axis=1,
-        )
+    packed = jnp.concatenate(parts, axis=1)  # [N, C]
     C = packed.shape[1]
 
     def unpack(mb2d: jax.Array) -> Dict[str, jax.Array]:
@@ -345,9 +320,8 @@ def ppo_update(
         params, opt_state, stop, sums, count = carry
         skip_now = stop
         if can_be_all_pad:
-            # valid flag is the last REAL packed column (lane-align pad
-            # columns may follow it).
-            skip_now = stop | (jnp.sum(mb2d[:, C_real - 1]) <= 0.0)
+            # valid flag is the last packed column.
+            skip_now = stop | (jnp.sum(mb2d[:, C - 1]) <= 0.0)
 
         def run(operand):
             params, opt_state, sums, count = operand
@@ -393,9 +367,9 @@ def ppo_update(
         # action masks / observations stay well-formed.  (mb_size / pad
         # themselves are computed above mb_body, which also guards the
         # pad >= mb_size all-pad-minibatch case.)
-        pad_rows = packed[:pad].at[:, C_real - 1].set(0.0)
+        pad_rows = packed[:pad].at[:, C - 1].set(0.0)
         packed = jnp.concatenate([packed, pad_rows], axis=0)
-    R = resolve_shuffle_block(nmb * mb_size, mb_size, cfg.shuffle_block_rows)
+    R = resolve_shuffle_block(mb_size, cfg.shuffle_block_rows)
     num_blocks = (nmb * mb_size) // R
     packed_tiled = packed[: nmb * mb_size].reshape(num_blocks, R * C)
 

@@ -10,7 +10,7 @@ Gaussian elimination (320-425); Elo scale 400/ln10 with the anchor player
 pinned to anchor_elo and CI inflation 1.3 (102-146, 540-607).
 
 Pure NumPy — rating computation is a tiny host-side problem (dozens of
-players), so there is nothing to put on the TPU.
+players), so there is nothing to put on the device.
 """
 
 from __future__ import annotations

@@ -106,7 +106,7 @@ class TrainingSupervisor:
     def run(self) -> int:
         """Spawn-and-wait loop (supervisor.rs:102-153).
 
-        SIGTERM (pod preemption) forwards to the child and STOPS the
+        SIGTERM (preemption) forwards to the child and STOPS the
         respawn loop — the child checkpoints and exits 0, and without
         the stop flag the loop would immediately respawn it, making a
         supervised run unstoppable by SIGTERM."""

@@ -1,13 +1,9 @@
 """Self-play throughput benchmark: vs-pool vs plain self-play train steps
-at TPU scale (Connect Four, hidden 512, K=8 stacked opponents).
+at 16384 envs (Connect Four, hidden 512, K=8 stacked opponents).
 
-The stacked-parameter vmap design makes the opponent forward ~free:
-measured 251ms (pool) vs 242ms (selfplay) per update at 16384 envs x 64
-steps on one v5e chip = 4.2M env-steps/s. (Those numbers predate the
-symmetric-bookkeeping fix below — the selfplay side previously let XLA
-DCE its episode-stat summaries, slightly overstating pool overhead;
 bench.py's selfplay_pool path is the maintained apples-to-apples
-measurement.)
+measurement of the same comparison; this script sweeps it at a larger
+env count. Not measured on the H100 yet.
 """
 import os
 import sys

@@ -1,4 +1,4 @@
-"""Standardized per-env Elo validation protocol (VERDICT r2 item 8).
+"""Standardized per-env Elo validation protocol.
 
 Round-over-round learning-quality tracking: each multiplayer env trains
 for a FIXED wall budget (default 8m) with a FIXED per-env seed on the
@@ -9,11 +9,10 @@ improvements are allowed to show up as more env steps inside the budget
 — the protocol measures end-to-end learning per wall-clock, which is
 what the framework optimizes.
 
-Usage (repo root, real TPU):
+Usage (repo root, on the GPU):
     python scripts/elo_protocol.py [--budget 8m] [--tag r3] [env ...]
 
-Writes runs/{env}_hw_{tag} and prints one summary row per env for
-docs/VALIDATION.md.
+Writes runs/{env}_hw_{tag} and prints one summary row per env.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Frozen cross-round strength gauge (VERDICT r3 #1).
+"""Frozen cross-round strength gauge.
 
 During-training Elo anchors at each run's own first checkpoint, so it
 cannot compare ROUNDS: a faster framework compresses its own score.

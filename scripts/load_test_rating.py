@@ -1,4 +1,4 @@
-"""Million-game-regime load test for the rating engine (VERDICT r3 #4).
+"""Million-game-regime load test for the rating engine.
 
 Simulates a long training run's rating traffic: C checkpoints, each
 recording a large batch of vs-pool games through the array-native path

@@ -1,49 +1,42 @@
-"""Host-side bench.py helpers (no device work): baseline merging and
-iteration-count clamping."""
+"""Host-side bench.py helpers (no device work): the peak table, the
+GPU-only device check and iteration-count clamping."""
 
-import json
 import sys
+
+import pytest
 
 sys.path.insert(0, ".")  # bench.py lives at the repo root
 
 import bench
 
 
-def test_previous_bench_merges_per_metric(tmp_path, monkeypatch):
-    """A metric missing (or zero) in the latest round must fall back to
-    the most recent round that HAS it, per metric — not be masked by the
-    newest file wholesale."""
-    (tmp_path / "BENCH_r01.json").write_text(json.dumps({
-        "value": 100.0,
-        "extra": {"selfplay_pool_sps": 5.0, "skull_ctde_sps": 2.0},
-    }))
-    (tmp_path / "BENCH_r02.json").write_text(json.dumps({
-        "parsed": {"value": 110.0, "extra": {"selfplay_pool_sps": 6.0}},
-    }))
-    monkeypatch.chdir(tmp_path)
-    prev = bench.previous_bench()
-    assert prev["value"] == 110.0  # latest round wins where present
-    assert prev["extra"]["selfplay_pool_sps"] == 6.0
-    assert prev["extra"]["skull_ctde_sps"] == 2.0  # falls back to r01
+@pytest.mark.parametrize("kind", sorted(bench.PEAKS))
+def test_device_peaks_known_kind(kind):
+    peaks = bench.device_peaks(kind)
+    assert peaks["bf16_tflops"] > peaks["tf32_tflops"] > peaks["f32_tflops"]
+    assert peaks["hbm_tb_per_s"] > 0
 
 
-def test_previous_bench_numeric_round_order(tmp_path, monkeypatch):
-    """BENCH_r10 must beat BENCH_r9 (lexicographic order would not)."""
-    (tmp_path / "BENCH_r9.json").write_text(json.dumps({"value": 9.0}))
-    (tmp_path / "BENCH_r10.json").write_text(json.dumps({"value": 10.0}))
-    monkeypatch.chdir(tmp_path)
-    assert bench.previous_bench()["value"] == 10.0
+def test_device_peaks_h100_sxm_values():
+    """The H100 SXM row carries NVIDIA's published dense rates."""
+    peaks = bench.device_peaks("NVIDIA H100 80GB HBM3")
+    assert (peaks["bf16_tflops"], peaks["tf32_tflops"],
+            peaks["f32_tflops"], peaks["hbm_tb_per_s"]) == (
+        989.0, 495.0, 67.0, 3.35)
 
 
-def test_previous_bench_skips_garbage(tmp_path, monkeypatch):
-    (tmp_path / "BENCH_r01.json").write_text("{not json")
-    (tmp_path / "BENCH_r02.json").write_text(json.dumps({
-        "value": "nan?", "extra": {"x": None, "y": 3.0},
-    }))
-    monkeypatch.chdir(tmp_path)
-    prev = bench.previous_bench()
-    assert prev["value"] == 0.0
-    assert prev["extra"] == {"y": 3.0}
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 PCIe", "NVIDIA A100-SXM4-80GB"])
+def test_device_peaks_unknown_kind_raises(kind):
+    with pytest.raises(ValueError, match="no published peaks"):
+        bench.device_peaks(kind)
+
+
+def test_gpu_device_refuses_cpu():
+    """No fallback: on the CPU backend the bench raises before measuring."""
+    import jax
+
+    with pytest.raises(RuntimeError, match="measures a GPU"):
+        bench.gpu_device(jax)
 
 
 def test_iters_env_clamps_to_two(monkeypatch, capsys):

@@ -307,7 +307,7 @@ def test_ctde_eval_cli(ctde_run):
 
 
 def test_sigterm_graceful_checkpoint(tmp_path):
-    """SIGTERM (pod preemption notice) triggers the same graceful exit
+    """SIGTERM (preemption notice) triggers the same graceful exit
     as Ctrl-C: finish the update, write a final checkpoint, exit 0 —
     so --resume recovers the run."""
     import signal as _signal

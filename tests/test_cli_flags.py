@@ -2,6 +2,8 @@
 (config.rs:63-298): every overridable hyperparameter has a flag that
 flows into Config."""
 
+import pytest
+
 from burn_ppo_tpu.cli import TRAIN_OVERRIDE_KEYS, build_parser, collect_overrides
 from burn_ppo_tpu.config import Config
 
@@ -70,7 +72,24 @@ def test_reference_trainargs_coverage():
     assert not missing, f"reference TrainArgs without a CLI override: {missing}"
 
 
-def test_compilation_cache_flag_and_helper(tmp_path, monkeypatch):
+@pytest.fixture
+def cache_config(monkeypatch):
+    """Restore JAX's cache settings after a test that sets them."""
+    import jax
+
+    names = (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs",
+        "jax_persistent_cache_min_entry_size_bytes",
+    )
+    saved = {n: getattr(jax.config, n) for n in names}
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    yield jax.config
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_compilation_cache_flag_and_helper(tmp_path, cache_config):
     from burn_ppo_tpu.cli import build_parser
     from burn_ppo_tpu.utils import enable_compilation_cache
 
@@ -82,13 +101,46 @@ def test_compilation_cache_flag_and_helper(tmp_path, monkeypatch):
     target = tmp_path / "xla_cache"
     got = enable_compilation_cache(str(target))
     assert got == str(target) and target.is_dir()
+    assert cache_config.jax_compilation_cache_dir == str(target)
+
+
+@pytest.mark.parametrize("spec", ["auto", "off", "explicit"])
+def test_compilation_cache_env_var_sets_no_directory(
+    tmp_path, monkeypatch, cache_config, spec
+):
+    """$JAX_COMPILATION_CACHE_DIR wins over every spec, and the code then
+    sets no cache directory of its own (JAX reads the variable)."""
+    from burn_ppo_tpu.utils import enable_compilation_cache
+
+    before = cache_config.jax_compilation_cache_dir
+    env_dir = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    arg = str(tmp_path / "explicit") if spec == "explicit" else spec
+    assert enable_compilation_cache(arg) == env_dir
+    assert cache_config.jax_compilation_cache_dir == before
+    assert not (tmp_path / "explicit").exists()
+
+
+@pytest.mark.parametrize("backend,expected", [("gpu", True), ("cpu", False)])
+def test_compilation_cache_auto_by_backend(monkeypatch, cache_config,
+                                           backend, expected):
+    """'auto' caches under <checkout>/.cache/xla on a GPU backend and
+    stays off on CPU (XLA:CPU AOT code is host-feature specific)."""
+    from pathlib import Path
+
     import jax
 
-    assert jax.config.jax_compilation_cache_dir == str(target)
+    import burn_ppo_tpu
+    from burn_ppo_tpu.utils import enable_compilation_cache
 
-    monkeypatch.setenv("BURN_PPO_COMPILE_CACHE", str(tmp_path / "env_cache"))
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
     got = enable_compilation_cache("auto")
-    assert got == str(tmp_path / "env_cache")
+    if expected:
+        checkout = Path(burn_ppo_tpu.__file__).resolve().parents[1]
+        assert got == str(checkout / ".cache" / "xla")
+        assert cache_config.jax_compilation_cache_dir == got
+    else:
+        assert got is None
 
 
 def test_main_preserves_train_valued_options(monkeypatch):
@@ -108,12 +160,33 @@ def test_main_preserves_train_valued_options(monkeypatch):
     assert seen["argv"] == ["--run-name", "train", "--env", "cartpole"]
 
 
-def test_compilation_cache_empty_env_var_is_unset(monkeypatch):
-    """BURN_PPO_COMPILE_CACHE='' (set-but-empty shell/CI artifact) must
+def test_compilation_cache_empty_env_var_is_unset(monkeypatch, cache_config):
+    """JAX_COMPILATION_CACHE_DIR='' (set-but-empty shell/CI artifact) must
     behave like unset — not become an explicit '' cache path."""
     from burn_ppo_tpu.utils import enable_compilation_cache
 
-    monkeypatch.setenv("BURN_PPO_COMPILE_CACHE", "")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "")
     # CPU backend in tests: the backend-gated default applies -> None,
     # and crucially no FileNotFoundError / cwd cache dir from Path('').
     assert enable_compilation_cache("auto") is None
+
+
+def test_platform_gpu_without_gpu_fails(tmp_path):
+    """--platform gpu never falls back to the CPU: with no GPU the CLI
+    exits non-zero before building anything."""
+    import os
+    import subprocess
+    import sys
+
+    # No visible card either way, so the check holds on a GPU host too.
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "burn_ppo_tpu", "train", "-c",
+         "configs/test.toml", "--platform", "gpu", "--quiet",
+         "--run-dir", str(tmp_path / "run")],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "--platform gpu" in proc.stderr and "no GPU" in proc.stderr
+    assert not (tmp_path / "run").exists()

@@ -1,10 +1,12 @@
 """Multi-host helper tests (single-process paths + shard reassembly).
 
 The reference has no distributed layer (SURVEY.md §2: no collectives);
-these cover the scale-out helpers the TPU build adds. True multi-process
+these cover the scale-out helpers this build adds. True multi-process
 behavior can't run here; what can is: single-process equivalences, and
 shard reassembly logic against a multi-device CPU mesh.
 """
+
+import os
 
 import numpy as np
 import jax
@@ -36,6 +38,7 @@ def test_maybe_initialize_env_coordinator(monkeypatch):
         )
 
     monkeypatch.setattr(jax.distributed, "initialize", fake_init)
+    monkeypatch.setenv("XLA_FLAGS", "")
     monkeypatch.setenv("BURN_PPO_COORDINATOR", "10.0.0.1:1234")
     monkeypatch.setenv("BURN_PPO_NUM_PROCESSES", "4")
     monkeypatch.setenv("BURN_PPO_PROCESS_ID", "2")
@@ -46,9 +49,38 @@ def test_maybe_initialize_env_coordinator(monkeypatch):
 def test_maybe_initialize_force(monkeypatch):
     called = []
     monkeypatch.setattr(jax.distributed, "initialize", lambda: called.append(1))
+    monkeypatch.setenv("XLA_FLAGS", "")
     monkeypatch.delenv("BURN_PPO_COORDINATOR", raising=False)
     assert dist.maybe_initialize(force=True) is True
     assert called == [1]
+
+
+@pytest.mark.parametrize("before,after", [
+    (None, "--xla_gpu_shard_autotuning=false"),
+    ("--xla_force_host_platform_device_count=4",
+     "--xla_force_host_platform_device_count=4 "
+     "--xla_gpu_shard_autotuning=false"),
+    ("--xla_gpu_shard_autotuning=true", "--xla_gpu_shard_autotuning=true"),
+])
+def test_multiprocess_init_autotunes_per_process(monkeypatch, before, after):
+    """A multi-process run turns XLA's sharded GPU autotuning off before
+    the backend starts, keeping other flags and an explicit choice."""
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: None)
+    monkeypatch.setenv("BURN_PPO_COORDINATOR", "localhost:1234")
+    if before is None:
+        monkeypatch.delenv("XLA_FLAGS", raising=False)
+    else:
+        monkeypatch.setenv("XLA_FLAGS", before)
+    assert dist.maybe_initialize() is True
+    assert os.environ["XLA_FLAGS"] == after
+
+
+def test_single_process_leaves_xla_flags_alone(monkeypatch):
+    monkeypatch.delenv("BURN_PPO_COORDINATOR", raising=False)
+    monkeypatch.delenv("BURN_PPO_MULTIHOST", raising=False)
+    monkeypatch.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+    assert dist.maybe_initialize() is False
+    assert os.environ["XLA_FLAGS"] == "--xla_force_host_platform_device_count=8"
 
 
 def test_global_put_single_process():

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.envs.base import (
     Environment,

@@ -288,7 +288,7 @@ def test_leaf_tensor_int_array_encoded_bytes():
     """rmp-serde without serde_bytes encodes Vec<u8> as a msgpack int
     array; the leaf decoder must reinterpret a byte-valued numeric list
     whose count is itemsize * prod(shape) as raw little-endian bytes
-    (ADVICE r4)."""
+   ."""
     import numpy as np
 
     from burn_ppo_tpu.interop import _leaf_tensor

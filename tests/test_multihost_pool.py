@@ -14,7 +14,7 @@ import json
 
 import numpy as np
 import pytest
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.parallel.distributed import allgather_rows
 from burn_ppo_tpu.selfplay.opponent_pool import OpponentPool
@@ -323,7 +323,7 @@ def test_two_process_pool_training_e2e(tmp_path):
 
 
 def test_two_process_preemption_resume(tmp_path):
-    """Pod-preemption recovery, end to end with real processes: SIGTERM
+    """Preemption recovery, end to end with real processes: SIGTERM
     delivered to HOST 0 ONLY must stop BOTH processes at the same update
     (the stop decision is host-0's, broadcast each iteration — a
     host-local exit would hang the other process in a collective), write

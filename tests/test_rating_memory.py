@@ -228,7 +228,7 @@ def test_shrunken_log_under_cache_rebuilds_from_log(tmp_path):
     """A jsonl that lost a tail write (crash) while the comparison cache
     covers more games must trigger a full cache-discarding rebuild —
     detected at EOF of the single tail-parse pass, not via a separate
-    line-counting stream (ADVICE r4)."""
+    line-counting stream."""
     h = RatingHistory(tmp_path)
     names = ["step_00000100", "step_00000200"]
     for i, n in enumerate(names):

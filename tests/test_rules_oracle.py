@@ -1,4 +1,4 @@
-"""Differential rules oracle for the bluffing games (VERDICT r3 #3).
+"""Differential rules oracle for the bluffing games.
 
 Replays thousands of random games through an independently-written
 plain-Python rules engine (tests/oracles/, written from the reference's

@@ -6,7 +6,7 @@ src/ppo.rs:363-366)."""
 import jax
 import jax.numpy as jnp
 import pytest
-from flax import struct
+from burn_ppo_tpu import struct
 
 from burn_ppo_tpu.config import Config
 from burn_ppo_tpu.envs import register

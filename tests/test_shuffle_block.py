@@ -9,33 +9,35 @@ from burn_ppo_tpu.ppo.update import resolve_shuffle_block
 
 def test_exact_at_reference_scales():
     # 32 envs x 128 steps (configs/cartpole.toml) -> exact shuffle
-    assert resolve_shuffle_block(4096, 1024, 0) == 1
+    assert resolve_shuffle_block(1024, 0) == 1
     # 128 x 64 (connect_four) -> exact
-    assert resolve_shuffle_block(8192, 2048, 0) == 1
+    assert resolve_shuffle_block(2048, 0) == 1
 
 
-def test_tiled_at_tpu_scale():
+def test_default_is_exact_at_large_scale():
+    """0 is exact at every batch size: the exact row gather costs about
+    as much as tiles on the H100, so the default keeps the reference's
+    per-sample shuffle."""
     n = 65536 * 128
-    assert resolve_shuffle_block(n, n // 4, 0) == 128
+    assert resolve_shuffle_block(n // 4, 0) == 1
 
 
 def test_intermediate_scale():
-    n = 2048 * 128  # 262144
-    r = resolve_shuffle_block(n, n // 4, 0)
-    assert r == 16  # N // 16384
+    n = 4096 * 64  # the flagship's 262144 samples/update
+    assert resolve_shuffle_block(n // 8, 0) == 1
 
 
 def test_requested_one_is_exact():
-    assert resolve_shuffle_block(10**7, 10**7 // 4, 1) == 1
+    assert resolve_shuffle_block(10**7 // 4, 1) == 1
 
 
 def test_requested_explicit():
-    assert resolve_shuffle_block(4096, 1024, 64) == 64
+    assert resolve_shuffle_block(1024, 64) == 64
 
 
 def test_rounds_down_to_divisor_power_of_two():
     # mb_size 96: target 64 -> largest pow2 divisor chain: 2,4,8,16,32
-    assert resolve_shuffle_block(384, 96, 64) == 32
+    assert resolve_shuffle_block(96, 64) == 32
 
 
 def test_tiled_update_still_trains():

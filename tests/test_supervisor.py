@@ -198,3 +198,38 @@ def test_count_checkpoints_ignores_parked_old_dirs(tmp_path):
     sup = TrainingSupervisor.__new__(TrainingSupervisor)
     sup.run_dir = tmp_path
     assert sup._count_checkpoints() == 1
+
+
+_SUPERVISOR_PROBE = """
+import sys
+from jax._src import xla_bridge
+import burn_ppo_tpu.cli as cli
+import burn_ppo_tpu.supervisor as sup
+
+def probe(self):
+    print("backends_initialized", xla_bridge.backends_are_initialized())
+    return 0
+
+sup.TrainingSupervisor.run = probe
+sys.exit(cli.main(["train", "-c", "configs/test.toml", "--quiet",
+                   "--reload-every-n-checkpoints", "2",
+                   "--run-dir", sys.argv[1]]))
+"""
+
+
+def test_supervisor_parent_leaves_jax_backends_uninitialized(tmp_path):
+    """The supervisor parent only loads the Config and spawns children:
+    it must never open a device, or its process would hold the card's
+    memory that the respawned training child needs."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUPERVISOR_PROBE, str(tmp_path / "run")],
+        cwd=repo, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "backends_initialized False" in proc.stdout
